@@ -1,9 +1,9 @@
 // tpusdr native host runtime: SPSC ring buffer, IQ file reader, format
 // deinterleaver.
 //
-// TPU-native counterpart of the reference's C++ host-side substrate
+// Counterpart of the reference's C++ host-side substrate
 // (SURVEY.md sections 2.3/2.9): BufferPool + condvar handoff
-// (/root/reference/src/buffers/BufferPool.cpp:38-99, HackrfSource.cpp:
+// (reference src/buffers/BufferPool.cpp:38-99, HackrfSource.cpp:
 // 175-201), FileReader chunked reads (FileReader.cpp:48-66), and the
 // int8-interleaved -> float-planes conversion the pair-native device layout
 // needs at ingest. The device compute path is JAX/XLA; this library keeps

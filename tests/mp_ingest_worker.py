@@ -1,4 +1,4 @@
-"""Worker process for the multi-process (DCN) ingest test.
+"""Worker process for the multi-process (multi-host) ingest test.
 
 Launched N times by tests/test_ingest.py::TestMultiProcessIngest with a
 shared coordinator port.  Each process owns 2 virtual CPU devices; the

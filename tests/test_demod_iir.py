@@ -171,7 +171,7 @@ class TestDeemphasis:
 
 
 class TestBlockedIir:
-    """The blocked MXU one-pole form (ops/iir._first_order_blocked) must be
+    """The blocked matmul one-pole form (ops/iir._first_order_blocked) must be
     numerically interchangeable with the associative scan and scipy."""
 
     def test_blocked_matches_scipy_and_scan(self, rng):

@@ -156,3 +156,16 @@ class TestAgainstScipy:
         )
         ref = sps.lfilter(taps, 1.0, x)  # causal filter == conv with zero pad
         np.testing.assert_allclose(y, ref[: len(y)], atol=1e-3)
+
+
+@pytest.mark.parametrize("mode", ["pallas", "banded", "bogus"])
+def test_unknown_modes_raise(mode):
+    """Only the XLA paths exist: the former kernel modes are refused at
+    construction, for Fir and FreqShiftFir alike."""
+    from tpusdr.graph import blocks as B
+
+    taps = sps.firwin(33, 0.2).astype(np.float32)
+    with pytest.raises(ValueError, match="unknown FIR mode"):
+        B.Fir(taps, 4, mode=mode)
+    with pytest.raises(ValueError, match="unknown FIR mode"):
+        B.FreqShiftFir(1e6, 1e5, taps, 4, mode=mode)

@@ -1,6 +1,6 @@
 """Chain / Graph / registry / checkpoint / dot tests.
 
-Covers the reference's L4/L5 behaviors the TPU build re-designs: composite
+Covers the reference's L4/L5 behaviors this build re-designs: composite
 construction from JSON (FilterDriverFactory.cpp:181-274), single-source-
 per-port validation (SteppingDriver.cpp:418-442), rate planning replacing
 runtime negotiation, and stream-state checkpointing (absent in reference).
@@ -87,7 +87,7 @@ class TestChain:
             s, y = c.apply(s, zp[..., i : i + n])
             outs.append(np.asarray(y))
             i += n
-        # Same samples up to float32 reassociation: the MXU FIR's output
+        # Same samples up to float32 reassociation: the banded-matmul FIR's output
         # tile phase depends on the block boundary, so a chunking that is
         # not a tile multiple regroups the (banded, mostly-zero) dot terms.
         # The streaming contract is the reference's 1e-3 (FirTests.cpp:87);
@@ -230,7 +230,7 @@ class TestGraph:
         for i in range(0, 1024, 256):
             s, y = g.apply(s, zp[..., i : i + 256])
             outs.append(np.asarray(y))
-        # 1e-5: MXU FIR tile-phase reassociation (see TestChain note).
+        # 1e-5: banded-matmul FIR tile-phase reassociation (see TestChain note).
         np.testing.assert_allclose(np.concatenate(outs), np.asarray(whole), atol=1e-5)
 
 

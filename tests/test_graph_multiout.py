@@ -69,7 +69,7 @@ class TestFanOut:
             parts_mag.append(np.asarray(b))
         s0 = g.init_state()
         _, (wa, wb) = g.apply(s0, zp)
-        # 1e-5: MXU FIR tile-phase reassociation (see test_graph_chain note).
+        # 1e-5: banded-matmul FIR tile-phase reassociation (see test_graph_chain note).
         np.testing.assert_allclose(np.concatenate(parts_fm), np.asarray(wa), atol=1e-5)
         np.testing.assert_allclose(np.concatenate(parts_mag), np.asarray(wb), atol=1e-5)
 

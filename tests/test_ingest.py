@@ -66,7 +66,7 @@ class TestShardedFileIngest:
 
 @pytest.mark.multiprocess
 class TestMultiProcessIngest:
-    """Real multi-process DCN path (VERDICT r1 missing #3): N=2 local
+    """Real multi-process path (VERDICT r1 missing #3): N=2 local
     processes under jax.distributed (CPU backend), each reading only its
     own byte ranges, must reproduce the single-process result.  Executes
     jax.make_array_from_process_local_data with process_count() == 2 —

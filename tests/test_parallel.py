@@ -344,8 +344,8 @@ def run_sharded_stagewise(chain, x_pair, ticks, mesh):
 class TestStagewiseHalo:
     """Per-stage-rate halos (stagewise=True): each stage exchanges its
     lookback at its OWN rate instead of one chain-wide input-rate halo —
-    the redundant-compute fix that makes the 100 MHz scaling story close
-    (benchmarks/scaling_model.py).  Must match unsharded exactly like the
+    the redundant-compute fix that makes the 100 MHz scaling story close.
+    Must match unsharded exactly like the
     chain-wide halo does."""
 
     def test_fir_cascade_matches_unsharded(self, rng):

@@ -1,5 +1,5 @@
 """Named execution queues (graph/queues.py) — the CommandQueueFactory role
-(/root/reference/src/commandqueue/CommandQueueFactory.cpp:35-77): queue
+(reference src/commandqueue/CommandQueueFactory.cpp:35-77): queue
 identity, device resolution from reference-style JSON, and the merged
 single-dispatch runner for N independent pipelines sharing one device."""
 
@@ -56,7 +56,7 @@ def small_am_chain():
 class TestQueueRegistry:
     def test_create_get_roundtrip(self):
         reg = QueueRegistry()
-        q = reg.create("main", {"queueType": "tpu", "device": 0})
+        q = reg.create("main", {"queueType": "gpu", "device": 0})
         assert reg.get("main") is q
         assert q.device == jax.devices()[0]
         assert "main" in reg.names()
@@ -82,9 +82,20 @@ class TestQueueRegistry:
             reg.create("q", {"device": 1})
 
     def test_out_of_range_device_degrades_to_zero(self):
+        """An ordinal outside jax.devices() is NotFound
+        (CommandQueueFactory.cpp:72-75): it raises instead of silently
+        pinning the pipeline to device 0."""
         reg = QueueRegistry()
-        q = reg.create("overflow", {"cudaDevice": 10_000})
-        assert q.device == jax.devices()[0]
+        with pytest.raises(ValueError, match="out of range"):
+            reg.create("overflow", {"cudaDevice": 10_000})
+        assert "overflow" not in reg.names()
+
+    @pytest.mark.parametrize("qtype", ["cuda", "gpu", "cpu", "GPU"])
+    def test_platform_spellings_accepted(self, qtype):
+        reg = QueueRegistry()
+        assert reg.create("q", {"queueType": qtype, "device": 0}).device == (
+            jax.devices()[0]
+        )
 
     def test_unknown_queue_raises(self):
         reg = QueueRegistry()

@@ -1,17 +1,17 @@
-"""tpusdr — TPU-native software-defined-radio signal-processing framework.
+"""tpusdr — software-defined-radio signal-processing framework on JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 kernrj/cuda-sdr (gpusdrpipeline): streaming SDR demodulation graphs
 (sources -> format conversion -> frequency translation -> decimating FIR ->
 quadrature demodulation -> audio resampling -> sinks) expressed as pure
 ``(state, block) -> (state, block)`` functions compiled per streaming block,
-sharded over TPU meshes by channel and time-block with overlap-save halo
+sharded over device meshes by channel and time-block with overlap-save halo
 exchange.
 
 Design stance (see SURVEY.md section 7): the reference's CUDA/C++ object
 graph (IRef refcounting, request/commit buffer protocol, SteppingDriver
-demand recursion — /root/reference/src/driver/SteppingDriver.cpp:193-245) is
-an artifact of mutable GPU buffers; on TPU the same semantics collapse into
+demand recursion — reference src/driver/SteppingDriver.cpp:193-245) is
+an artifact of mutable GPU buffers; under XLA the same semantics collapse into
 static shape arithmetic + carry-state pytrees + XLA's async scheduler.
 """
 

@@ -1,12 +1,12 @@
 """Sharded-throughput benchmark harness (BASELINE.md configs 4/5).
 
 Measures samples/s of the time-sharded WBFM chain and the channel-sharded
-FM bank across mesh sizes, printing a scaling table.  On this dev box only
-one real TPU exists, so by default it runs on a virtual CPU mesh — which
-validates the machinery and measures *collective overhead*, not real chip
-scaling; on a pod slice the same harness measures the BASELINE scaling
-efficiency directly (run with --platform tpu there).
+FM bank across mesh sizes, printing a scaling table with the device beside
+every row.  By default it runs on JAX's default devices (the GPUs of the
+host); ``--platform cpu`` runs on a virtual CPU mesh instead, which checks
+the machinery but measures no device.
 
+  python -m tpusdr.apps.bench_scaling --devices 1,2,4
   python -m tpusdr.apps.bench_scaling --devices 1,2,4,8 --platform cpu
 """
 
@@ -32,7 +32,9 @@ def main(argv=None) -> int:
     ap.add_argument("--rf-rate", type=float, default=2e6)
     ap.add_argument("--tick", type=int, default=1 << 19)
     ap.add_argument("--iters", type=int, default=5)
-    ap.add_argument("--platform", default="cpu")
+    ap.add_argument(
+        "--platform", default=None, help="force a jax platform (e.g. 'cpu')"
+    )
     args = ap.parse_args(argv)
 
     import os
@@ -45,8 +47,9 @@ def main(argv=None) -> int:
         ).strip()
     import jax
 
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
+    from tpusdr.utils import runtime
+
+    device = runtime.start(args.platform)
 
     from tpusdr.graph import blocks as B
     from tpusdr.graph.chain import Chain
@@ -104,15 +107,23 @@ def main(argv=None) -> int:
             dt = (time.perf_counter() - t0) / args.iters
 
         msps = tick / dt / 1e6
-        results.append({"devices": n_dev, "msps": round(msps, 2)})
-        print(f"{n_dev} devices: {msps:9.2f} Msps ({dt*1e3:.2f} ms/tick)")
+        results.append({"devices": n_dev, "msps": msps})
+        print(
+            f"{n_dev} x {device['kind']} ({device['platform']}): "
+            f"{msps:9.2f} Msps ({dt*1e3:.2f} ms/tick)"
+        )
 
     base = results[0]["msps"]
     for r in results:
-        r["scaling_efficiency"] = round(r["msps"] / (base * r["devices"]), 3)
+        r["scaling_efficiency"] = r["msps"] / (base * r["devices"])
     print(
         json.dumps(
-            {"mode": args.mode, "stagewise": args.stagewise, "results": results}
+            {
+                "mode": args.mode,
+                "stagewise": args.stagewise,
+                "device": device,
+                "results": results,
+            }
         )
     )
     return 0

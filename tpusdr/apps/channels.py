@@ -24,6 +24,7 @@ from tpusdr.graph.runner import StreamRunner, _to_host
 from tpusdr.io.sinks import WavSink
 from tpusdr.io.sources import FileIqSource, SyntheticIqSource
 from tpusdr.models import multichannel
+from tpusdr.utils import runtime
 from tpusdr.utils.logging import get_logger
 
 log = get_logger("apps.channels")
@@ -43,8 +44,7 @@ def main(argv=None) -> int:
     ap.add_argument("--platform", default=None)
     args = ap.parse_args(argv)
 
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
+    runtime.start(args.platform)
 
     chain, info = multichannel.fm_channel_bank(
         args.rf_rate, args.channels, args.audio_rate
@@ -60,11 +60,9 @@ def main(argv=None) -> int:
 
         def make(t):
             def fm(fk, fa):
-                audio = np.sin(2 * np.pi * fa * t)
-                ph = (
-                    2 * np.pi * fk * t
-                    + 2 * np.pi * dev * np.cumsum(audio) / args.rf_rate
-                )
+                # closed-form tone integral: phase-continuous across ticks
+                w = 2 * np.pi * fa
+                ph = 2 * np.pi * fk * t + 2 * np.pi * dev * (1.0 - np.cos(w * t)) / w
                 return np.exp(1j * ph)
 
             z = 0.5 * fm(k1 * args.rf_rate / m, 700.0) + 0.5 * fm(

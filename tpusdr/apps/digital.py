@@ -26,6 +26,7 @@ from tpusdr.graph.runner import StreamRunner
 from tpusdr.io.sinks import AacFileSink, NullSink, WavSink
 from tpusdr.io.sources import FileIqSource, SyntheticIqSource
 from tpusdr.models import receiver
+from tpusdr.utils import runtime
 from tpusdr.utils.logging import get_logger, set_log_level
 
 
@@ -54,10 +55,7 @@ def main(argv=None) -> int:
 
     if args.verbose:
         set_log_level("debug")
-    if args.platform:
-        import jax
-
-        jax.config.update("jax_platforms", args.platform)
+    runtime.start(args.platform)
 
     chain, spec = receiver.digital_receiver(
         rf_sample_rate=args.rf_rate,

@@ -24,6 +24,7 @@ from tpusdr.graph.runner import StreamRunner
 from tpusdr.io.sinks import AacFileSink, NullSink, WavSink
 from tpusdr.io.sources import FileIqSource, SocketIqSource, SyntheticIqSource
 from tpusdr.models import receiver
+from tpusdr.utils import runtime
 from tpusdr.utils.logging import get_logger, set_log_level
 
 log = get_logger("apps.receive")
@@ -90,17 +91,14 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--platform",
         default=None,
-        help="force a jax platform (e.g. 'cpu'); overrides plugin defaults",
+        help="force a jax platform (e.g. 'cpu'); default: JAX's own choice",
     )
     ap.add_argument("-v", "--verbose", action="store_true")
     args = ap.parse_args(argv)
 
     if args.verbose:
         set_log_level("debug")
-    if args.platform:
-        import jax
-
-        jax.config.update("jax_platforms", args.platform)
+    runtime.start(args.platform)
 
     fs = args.rf_rate
     # with --native the int->float IQ conversion happens on the host in C
@@ -120,8 +118,6 @@ def main(argv=None) -> int:
             deviation=args.deviation,
             deemphasis_tau=None if args.no_deemphasis else receiver.TAU_US,
             input_format=chain_format,
-            # the IF tap needs the unfused shift->FIR->demod stages
-            use_fused=False if args.dump_if else "auto",
         )
 
     tick = max(1, args.tick // chain.granule) * chain.granule
@@ -186,8 +182,6 @@ def main(argv=None) -> int:
         from tpusdr.io.sinks import RawFileSink
 
         names = [n for n, _ in chain.blocks]
-        if "demod" not in names:
-            ap.error("--dump-if needs an explicit demod stage (not --fused)")
         if_tap = names[names.index("demod") - 1]
         block = tapped(chain, [if_tap])
         sink = [sink, RawFileSink(args.dump_if, np.complex64)]

@@ -2,9 +2,9 @@
 
 The deployment story the reference bakes into one process (HackrfSource's
 USB callback feeding the pipeline in-process, HackrfSource.cpp:175-201)
-splits across hosts on TPU: this program runs ON THE RF HOST, owns the
+splits across hosts here: this program runs ON THE RF HOST, owns the
 radio, and serves two sockets — control (JSON commands, io/control.py) and
-data (interleaved int8 IQ).  The TPU-side receiver connects a
+data (interleaved int8 IQ).  The receiver on the accelerator host connects a
 SocketIqSource to the data port and a SdrControlClient to the control
 port (see tests/test_shim.py for the full loop).
 

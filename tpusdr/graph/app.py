@@ -67,7 +67,7 @@ def _make_source_factory(type_name: str, params: dict):
         fmt = p.get("format", "int8")
         if type_name == "HackRfSource":
             log.warning(
-                "node type 'HackRfSource': no radios on TPU hosts; expecting "
+                "node type 'HackRfSource': no radio on the accelerator host; expecting "
                 "a TCP IQ relay at %s:%s (the hackrf_transfer | nc idiom)",
                 p.get("host", "localhost"),
                 p.get("port", 5555),

@@ -1,7 +1,7 @@
 """The Block protocol: a pure streaming operator.
 
-This is the TPU-native answer to the reference's 6-method Node protocol
-(/root/reference/include/gpusdrpipeline/filters/Filter.h:30-138:
+This is the framework's answer to the reference's 6-method Node protocol
+(reference include/gpusdrpipeline/filters/Filter.h:30-138:
 requestBuffer/commitBuffer/getOutputDataSize/readOutput/...).  The
 request/commit buffer negotiation exists because CUDA filters mutate shared
 device buffers; with pure functions and static shapes the whole contract
@@ -80,7 +80,7 @@ class Block:
         JSON hook, Filter.h:36).  Sets matching attributes, then lets the
         block recompute anything derived (``_params_updated``).  The next
         *fresh trace* of apply() sees the new values — params are
-        compile-time constants on TPU by design, so a jitted step function
+        compile-time constants by design, so a jitted step function
         built before the update keeps the old ones (StreamRunner.refresh()
         rebuilds its step for exactly this reason)."""
         for k, v in params.items():

@@ -3,7 +3,7 @@
 Name-for-name coverage of the reference's registered node types
 (/root/reference/src/filters/FilterFactories.cpp:132-150: AddConst,
 AddConstToVectorLength, Component, Cosine, File, Fir, HackRfSource,
-Int8ToFloat, Magnitude, Multiply, QuadDemod) plus TPU-build additions
+Int8ToFloat, Magnitude, Multiply, QuadDemod) plus this build's additions
 (FreqShift, Resampler, Channelizer, Deemphasis, IqToComplex).  Each class
 documents the reference filter it replaces.
 """
@@ -118,12 +118,11 @@ class IqToComplex(Block):
     For the integer formats the stream element is one PACKED WORD per
     complex sample — int8 IQ arrives as little-endian int16 words, int16 IQ
     as int32 words (the host views the wire bytes for free: io sources /
-    convert.pack_int8_words) — so the rate is 1:1 and the granule 1.
-    Device-resident int8 is sub-word on TPU: loading + bitcasting it
-    measured 5.1x slower than splitting the identical bytes from words
-    (1.45 vs 7.47 Gsps of int8 scalars on v5e,
-    benchmarks/int8_front_probe.py 2026-08-19).  A raw int8/int16 scalar
-    array is rejected with a pointer at the packing helper.
+    convert.pack_int8_words) — so the rate is 1:1 and the granule 1.  The
+    packed-word layout was chosen on the former target, where sub-word int8
+    loads were slow; it is unmeasured on the GPU (ROADMAP Queue 1, item 7).
+    A raw int8/int16 scalar array is rejected with a pointer at the packing
+    helper.
 
     'float32' remains interleaved scalars (2:1) — f32 pairs have no wider
     word to pack into; cf32 captures enter as pairs via the runner anyway.
@@ -146,8 +145,7 @@ class IqToComplex(Block):
                 raise TypeError(
                     "IqToComplex('int8') takes packed int16 words (one per "
                     "complex sample); view the wire bytes with "
-                    "convert.pack_int8_words (free) — raw int8 arrays are "
-                    "5x slower on TPU"
+                    "convert.pack_int8_words (free)"
                 )
             return state, convert.int8_words_to_complex(x)
         if self.input_format == "int16":
@@ -184,7 +182,7 @@ class Fir(Block):
             taps.astype(np.complex64 if np.iscomplexobj(taps) else np.float32)
         )
         self.decimation = int(decimation)
-        self.mode = mode
+        self.mode = fir.check_mode(mode)
         self.down = self.decimation
         self.history = fir.history_len(taps.shape[-1])
         cplx = signal_type in ("FloatComplex", "ComplexFloat")
@@ -198,52 +196,7 @@ class Fir(Block):
         return fir.fir_init_state(self.taps, dt, batch_shape)
 
     def apply(self, state, x):
-        # 'auto' resolves to the banded-matmul MXU path (ops/fir.py):
-        # probed faster than the hand-written Pallas kernel at every
-        # production shape (benchmarks/fir_mxu_probe.py: 5018 vs 4636
-        # Msps(in) at the WBFM RF stage, 4085 vs 518 over poly at stage 1);
-        # mode='pallas' keeps the VPU kernel path reachable; mode='banded'
-        # selects the r3 banded MXU kernel with VMEM-assembled windows
-        # (kernels/fir_banded_pallas.py).
-        if self.mode == "pallas":
-            return self._apply_pallas(state, x)
-        if self.mode == "banded":
-            return self._apply_banded(state, x)
         return fir.fir_apply(state, x, self.taps, self.decimation, self.mode)
-
-    def _apply_banded(self, state, x):
-        """Banded MXU kernel with windows assembled in VMEM; falls back to
-        the XLA mxu path off-TPU or for shapes the kernel rejects."""
-        from tpusdr.kernels.dispatch import pallas_mode
-        from tpusdr.kernels.fir_banded_pallas import banded_fir_pallas, eligible
-        from tpusdr.ops import cplx as _cplx
-
-        mode = pallas_mode()
-        t_np = np.asarray(self.taps)
-        if (
-            mode == "xla"
-            or not _cplx.is_pair(x)
-            or x.ndim != 1
-            or not eligible(t_np.shape[-1], self.decimation, np.iscomplexobj(t_np))
-        ):
-            return fir.fir_apply(state, x, self.taps, self.decimation, "mxu")
-        ext = _cplx.concat([_cplx.ensure_pair(state), x], axis=-1)
-        y = banded_fir_pallas(
-            ext, t_np, self.decimation, interpret=(mode == "interpret")
-        )
-        t = t_np.shape[-1]
-        return ext[..., ext.shape[-1] - (t - 1) :], y
-
-    def _pallas_eligible(self, x) -> bool:
-        """Pair input, real taps, decimation >= 2, unbatched stream."""
-        from tpusdr.ops import cplx as _cplx
-
-        return (
-            _cplx.is_pair(x)
-            and x.ndim == 1
-            and self.decimation >= 2
-            and not jnp.iscomplexobj(self.taps)
-        )
 
     def _params_updated(self, names: frozenset) -> None:
         # Fir::setTaps parity (Fir.cpp:124-139).  A tap-count change alters
@@ -260,28 +213,6 @@ class Fir(Block):
             # decimation change as the rate change it is and rejects it
             self.decimation = int(self.decimation)
             self.down = self.decimation
-
-    def _apply_pallas(self, state, x):
-        """VMEM-resident Pallas kernel path (kernels/fir_pallas.py).
-
-        Requires pair input, real taps, decimation >= 2, unbatched stream;
-        falls back to the XLA poly path otherwise."""
-        if not self._pallas_eligible(x):
-            return fir.fir_apply(state, x, self.taps, self.decimation, "poly")
-        from tpusdr.kernels.dispatch import pallas_mode
-        from tpusdr.kernels.fir_pallas import fir_decim_pallas
-        from tpusdr.ops import cplx as _cplx
-
-        mode = pallas_mode()
-        if mode == "xla":  # Mosaic unavailable on this backend
-            return fir.fir_apply(state, x, self.taps, self.decimation, "poly")
-        ext = _cplx.concat([_cplx.ensure_pair(state), x], axis=-1)
-        y = fir_decim_pallas(
-            ext, self.taps, self.decimation, interpret=(mode == "interpret")
-        )
-        t = self.taps.shape[-1]
-        new_state = ext[..., ext.shape[-1] - (t - 1) :]
-        return new_state, y
 
 
 @register_block("Multiply")
@@ -369,9 +300,27 @@ class CosineMix(Block):
             self.inc = osc.freq_to_inc_u32(self.frequency, self.sample_rate)
 
 
+def _shifted_taps(taps: np.ndarray, inc: int) -> np.ndarray:
+    """taps[j] * e^{j theta(T-1-j)}: a frequency shift folded into the taps.
+
+    Angles come from the exact uint32 NCO accumulator, evaluated in float64
+    on the host (compile-time constants; they must stay numpy so tracing
+    never captures them)."""
+    T = len(taps)
+    k = (T - 1 - np.arange(T)) * int(inc) % (1 << 32)
+    ang = k.astype(np.float64) * (2.0 * np.pi / 2.0**32)
+    return (taps * np.exp(1j * ang)).astype(np.complex64)
+
+
+def _pair_taps(t: np.ndarray):
+    from tpusdr.ops import cplx as _cplx
+
+    return _cplx.Complex(jnp.asarray(t.real.copy()), jnp.asarray(t.imag.copy()))
+
+
 @register_block("FreqShiftFir")
 class FreqShiftFir(Block):
-    """Frequency shift folded into a decimating FIR (one MXU pass).
+    """Frequency shift folded into a decimating FIR (one matmul pass).
 
     Equivalent to FreqShift(fs, f) -> Fir(taps, D), with the full-rate
     oscillator + multiply eliminated: modulating the (compile-time) taps
@@ -406,56 +355,9 @@ class FreqShiftFir(Block):
         self.taps = taps.astype(np.float32)
         self.decimation = int(decimation)
         self.down = self.decimation
-        self.mode = mode
+        self.mode = fir.check_mode(mode)
         self.initial_phase = float(initial_phase)
         self.history = len(self.taps) - 1
-
-    def _mod_taps_np(self) -> np.ndarray:
-        """taps[j] * e^{j theta(T-1-j)} — angles from the exact uint32
-        accumulator, evaluated in float64 (host-side compile-time
-        constants; must stay numpy so tracing never captures them)."""
-        T = len(self.taps)
-        k = (T - 1 - np.arange(T)) * int(self.inc) % (1 << 32)
-        ang = k.astype(np.float64) * (2.0 * np.pi / 2.0**32)
-        return (self.taps * np.exp(1j * ang)).astype(np.complex64)
-
-    def _mod_taps(self):
-        from tpusdr.ops import cplx as _cplx
-
-        t = self._mod_taps_np()
-        return _cplx.Complex(
-            jnp.asarray(t.real.copy()), jnp.asarray(t.imag.copy())
-        )
-
-    def _banded(self, tail, x):
-        """Banded MXU kernel (VMEM windows) for the folded complex-tap FIR;
-        falls back to the XLA mxu path off-TPU / for rejected shapes.
-
-        Measured on v5e (r4, PROFILE_r04.json): the ISOLATED stage is
-        faster on the XLA mxu path (6893 vs 5648 Msps at T=546/D=50), so
-        'banded' is NOT the default here; the kernel earns its keep inside
-        FusedFmDemod, where the fused chain beats the unfused one
-        (4982.6 vs 4674.6 Msps, BENCH_configs_r04.json)."""
-        from tpusdr.kernels.dispatch import pallas_mode
-        from tpusdr.kernels.fir_banded_pallas import banded_fir_pallas, eligible
-
-        mode = pallas_mode()
-        if (
-            mode == "xla"
-            or x.re.ndim != 1
-            or not eligible(len(self.taps), self.decimation, True)
-        ):
-            from tpusdr.ops import cplx as _cplx
-
-            ext = _cplx.concat([tail, x], axis=-1)
-            return fir.fir_extended(ext, self._mod_taps(), self.decimation, "mxu")
-        return banded_fir_pallas(
-            x,
-            self._mod_taps_np(),
-            self.decimation,
-            interpret=(mode == "interpret"),
-            history=tail,
-        )
 
     def init_state(self, batch_shape=()):
         from tpusdr.ops import cplx as _cplx
@@ -475,17 +377,11 @@ class FreqShiftFir(Block):
 
         xp = _cplx.ensure_pair(x)
         n = x.shape[-1]
-        hist = len(self.taps) - 1
-        if self.mode == "banded":
-            v = self._banded(state["tail"], xp)
-            if n >= hist:
-                new_tail = xp[..., n - hist :]
-            else:
-                new_tail = _cplx.concat([state["tail"], xp], axis=-1)[..., -hist:]
-        else:
-            ext = _cplx.concat([state["tail"], xp], axis=-1)
-            v = fir.fir_extended(ext, self._mod_taps(), self.decimation, self.mode)
-            new_tail = ext[..., ext.shape[-1] - hist :]
+        ext = _cplx.concat([state["tail"], xp], axis=-1)
+        v = fir.fir_extended(
+            ext, _pair_taps(_shifted_taps(self.taps, self.inc)), self.decimation, self.mode
+        )
+        new_tail = ext[..., ext.shape[-1] - self.history :]
         rot = osc.complex_cosine_block(
             state["phase"],
             np.uint32(int(self.inc) * self.decimation % (1 << 32)),
@@ -529,15 +425,16 @@ class FusedFmDemod(Block):
     precedent, fm_simpletest.cpp:400-414).
 
     Equivalent to FreqShift(frequency) -> Fir(taps, D) -> QuadFmDemod(gain)
-    in one HBM pass.  The r3 form folds the shift into complex taps
-    (FreqShiftFir math) and runs the banded MXU kernel with VMEM-resident
-    windows (kernels/fir_banded_pallas.py); the residual per-output
-    rotation e^{j*D*w} cancels in the discriminator's conjugate product up
-    to a constant angle, applied as one audio-rate complex rotation.  No
-    full-rate VPU work remains — the r2 VPU MAC kernel (kernels/
-    fm_pallas.py) lost to the unfused MXU chain 2549 vs 4478 Msps
-    (BENCH_configs_r02) and is kept only as the fallback for shapes the
-    banded kernel rejects.  Carry: last (T-1)+D input samples + NCO phase.
+    as one block.  The shift is folded into complex taps (FreqShiftFir
+    math), so the filtered stream is y[m] = e^{j(phi0 + m*D*w)} v[m].  The
+    discriminator's conjugate product cancels the absolute phase:
+
+        y[m+1] conj(y[m]) = v[m+1] conj(v[m]) * e^{j*D*w}
+
+    leaving one constant rotation at the decimated rate.  So the block
+    needs no NCO state at all.  Carry: the last (T-1)+D input samples; each
+    tick recomputes the previous tick's last FIR output as the
+    discriminator's lookback.
     """
 
     out_dtype = jnp.float32
@@ -549,10 +446,7 @@ class FusedFmDemod(Block):
         taps,
         decimation: int,
         gain: float,
-        block_b: int = 1024,
     ):
-        from tpusdr.kernels.fir_banded_pallas import eligible, prelude_plan
-
         self.sample_rate = float(sample_rate)
         self.frequency = float(frequency)
         self.inc = osc.freq_to_inc_u32(frequency, sample_rate)
@@ -560,145 +454,22 @@ class FusedFmDemod(Block):
         self.decimation = int(decimation)
         self.down = self.decimation
         self.gain = float(gain)
-        self.block_b = block_b
         self.history = (len(self.taps) - 1) + self.decimation
-        # Zero-copy (prelude) kernel plan: when the banded kernel takes
-        # the shape, the carry holds 8 whole (G,) decimation rows of the
-        # previous tick and the kernel reads the tick straight from its
-        # natural (N/G, G) reshape — no prepend/pad copy at all.  The
-        # granule grows to G so chain planning produces row-exact ticks.
-        self._G, self._B = prelude_plan(len(self.taps), self.decimation)
-        self._rows_capable = eligible(len(self.taps), self.decimation, True)
-        from tpusdr.kernels.fir_banded_pallas import _GUARD
-
-        self._tail_len = (
-            _GUARD * self._G if self._rows_capable else self.history
-        )
-
-    @property
-    def granule(self) -> int:
-        # the prelude kernel wants ticks in whole 8-row (sublane) bands
-        from tpusdr.kernels.fir_banded_pallas import _GUARD
-
-        return _GUARD * self._G if self._rows_capable else self.down
 
     def init_state(self, batch_shape=()):
         from tpusdr.ops import cplx as _cplx
 
-        if batch_shape:
-            raise ValueError("FusedFmDemod is a single-stream block")
-        # phase of the first carried sample: tail_len samples precede the
-        # stream origin, so back the phase up by that many increments.
-        back = np.uint32((-int(self.inc) * self._tail_len) % (1 << 32))
-        return {
-            "tail": _cplx.zeros((self._tail_len,)),
-            "phase": jnp.uint32(back),
-            # previous decimated FIR output (the discriminator's lookback
-            # when the prelude kernel computes exactly N/D outputs)
-            "vprev": _cplx.zeros((1,)),
-        }
+        return {"tail": _cplx.zeros(tuple(batch_shape) + (self.history,))}
 
     def apply(self, state, x):
-        from tpusdr.kernels.dispatch import pallas_mode
-        from tpusdr.kernels.fir_banded_pallas import prelude_eligible
         from tpusdr.ops import cplx as _cplx
 
-        mode = pallas_mode()
-        n = x.shape[-1]
-        T = len(self.taps)
-        interpret = mode == "interpret"
-        new_vprev = state["vprev"]
-        if (
-            mode != "xla"
-            and self._rows_capable
-            and x.re.ndim == 1
-            and prelude_eligible(T, self.decimation, n, True)
-        ):
-            y, new_vprev = self._apply_prelude(
-                x, state["tail"], state["vprev"], interpret
-            )
-        elif mode != "xla" and self._rows_capable and x.re.ndim == 1:
-            # banded kernel, single-copy history prep (non-row ticks)
-            y, new_vprev = self._apply_banded(
-                x, state["tail"][..., -self.history :], interpret
-            )
-        else:
-            # phase of ext[0]: the carry is tail_len samples deep but the
-            # ext built here starts history samples back
-            ph = state["phase"] + jnp.uint32(
-                (int(self.inc) * (self._tail_len - self.history)) % (1 << 32)
-            )
-            ext = _cplx.concat(
-                [state["tail"][..., -self.history :], x], axis=-1
-            )
-            if mode == "xla":
-                y = self._apply_xla(ph, ext)
-            else:
-                from tpusdr.kernels.fm_pallas import fused_fm_demod_pallas
-
-                y = fused_fm_demod_pallas(
-                    ext,
-                    self.taps,
-                    self.decimation,
-                    self.inc,
-                    ph,
-                    self.gain,
-                    self.block_b,
-                    interpret=interpret,
-                )
-        L = self._tail_len
-        if n >= L:
-            new_tail = x[..., n - L :]
-        else:
-            new_tail = _cplx.concat([state["tail"], x], axis=-1)[..., -L:]
-        new_state = {
-            "tail": new_tail,
-            "phase": state["phase"] + jnp.uint32((int(self.inc) * n) % (1 << 32)),
-            "vprev": new_vprev,
-        }
-        return new_state, y
-
-    def _mod_taps_np(self) -> np.ndarray:
-        """taps[j] * e^{j theta(T-1-j)} (FreqShiftFir._mod_taps, as numpy —
-        the banded kernel folds them into its constant tap matrix)."""
-        T = len(self.taps)
-        k = (T - 1 - np.arange(T)) * int(self.inc) % (1 << 32)
-        ang = k.astype(np.float64) * (2.0 * np.pi / 2.0**32)
-        return (self.taps * np.exp(1j * ang)).astype(np.complex64)
-
-    def _apply_banded(self, x, tail, interpret: bool):
-        """Banded MXU kernel + audio-rate discriminator.
-
-        With the shift folded into the taps, the filtered-decimated stream
-        is y[m] = e^{j(phi0 + m*D*w)} v[m]; the discriminator product
-        y[m+1] conj(y[m]) = v[m+1] conj(v[m]) * e^{j*D*w} — the absolute
-        phase cancels and the residual is ONE constant rotation at the
-        decimated rate.
-        """
-        from tpusdr.kernels.fir_banded_pallas import banded_fir_pallas
-
-        v = banded_fir_pallas(
-            x, self._mod_taps_np(), self.decimation, interpret, history=tail
+        ext = _cplx.concat([state["tail"], _cplx.ensure_pair(x)], axis=-1)
+        v = fir.fir_extended(
+            ext, _pair_taps(_shifted_taps(self.taps, self.inc)), self.decimation
         )
-        return self._discriminate(v[..., 1:], v[..., :-1]), v[..., -1:]
-
-    def _apply_prelude(self, x, tail, vprev, interpret: bool):
-        """Zero-copy banded kernel: the tick is read straight from its
-        (N/G, G) reshape with the carried 8 prelude rows; exactly N/D
-        FIR outputs come back, and the discriminator's one-sample
-        lookback is the carried previous output ``vprev``."""
-        from tpusdr.kernels.fir_banded_pallas import _GUARD, banded_fir_prelude
-        from tpusdr.ops import cplx as _cplx
-
-        G = self._G
-        pre = _cplx.Complex(
-            tail.re.reshape(_GUARD, G), tail.im.reshape(_GUARD, G)
-        )
-        v = banded_fir_prelude(
-            x, pre, self._mod_taps_np(), self.decimation, interpret
-        )
-        vfull = _cplx.concat([vprev, v], axis=-1)
-        return self._discriminate(vfull[..., 1:], vfull[..., :-1]), v[..., -1:]
+        y = self._discriminate(v[..., 1:], v[..., :-1])
+        return {"tail": ext[..., ext.shape[-1] - self.history :]}, y
 
     def _discriminate(self, v_cur, v_prev):
         """prod = v[k] conj(v[k-1]) de-rotated by the constant folded-
@@ -714,56 +485,17 @@ class FusedFmDemod(Block):
         pi = prod.re * s + prod.im * c
         return jnp.float32(self.gain) * xmath.atan2(pi, pr)
 
-    def _apply_xla(self, phase0, ext):
-        """Same math via XLA ops (mix -> poly FIR -> discriminator); used
-        where compiled Mosaic is unavailable (kernels/dispatch.py)."""
-        from tpusdr.ops import cplx as _cplx
-        from tpusdr.ops import xmath
-
-        lo = osc.complex_cosine_block(phase0, self.inc, ext.shape[-1])
-        u = ext * lo
-        v = fir.fir_extended(u, jnp.asarray(self.taps), self.decimation, "poly")
-        prod = v[..., 1:] * v[..., :-1].conj()
-        return (jnp.float32(self.gain) * xmath.atan2(prod.im, prod.re)).astype(
-            jnp.float32
-        )
-
-    def shift_state(self, state, offset_samples):
-        off = jnp.asarray(offset_samples).astype(jnp.uint32)
-        return {
-            **state,
-            "phase": state["phase"] + jnp.uint32(self.inc) * off,
-        }
-
-    def advance_state(self, state, num_samples: int):
-        return {
-            **state,
-            "phase": state["phase"]
-            + jnp.uint32((int(self.inc) * num_samples) % (1 << 32)),
-        }
-
     def _params_updated(self, names: frozenset) -> None:
         if names & {"frequency", "sample_rate"}:
             self.inc = osc.freq_to_inc_u32(self.frequency, self.sample_rate)
         if names & {"taps", "decimation"}:
-            from tpusdr.kernels.fir_banded_pallas import (
-                _GUARD,
-                eligible,
-                prelude_plan,
-            )
-
+            # carried states sized for the old taps are invalid; the next
+            # init_state() builds the right carry (Fir.cpp:124 setTaps
+            # parity -- the reference also resets its retained buffer)
             self.taps = np.asarray(self.taps, np.float32)
             self.decimation = int(self.decimation)
             self.down = self.decimation
             self.history = (len(self.taps) - 1) + self.decimation
-            self._G, self._B = prelude_plan(len(self.taps), self.decimation)
-            self._rows_capable = eligible(len(self.taps), self.decimation, True)
-            self._tail_len = (
-                _GUARD * self._G if self._rows_capable else self.history
-            )
-            # carried states sized for the old taps are invalid; the next
-            # init_state() builds the right carry (Fir.cpp:124 setTaps
-            # parity -- the reference also resets its retained buffer)
 
 
 # ---------------------------------------------------------------------------
@@ -1046,8 +778,6 @@ class Channelizer(Block):
     def apply(self, state, x):
         plan = self._plan(x.shape[-1])
         # channel-major output (..., M, F): downstream per-channel blocks
-        # see time on the last axis.  Computed natively in that layout —
-        # the r2 form (row-major + post-transpose) left every intermediate
-        # with a narrow M-lane minor axis, measured as config 4's
-        # bottleneck (ops/channelizer.py channelize_apply docstring).
+        # see time on the last axis.  Computed natively in that layout, so
+        # no transpose follows (ops/channelizer.py channelize_apply).
         return chanops.channelize_apply(state, x, plan, channel_major=True)

@@ -3,7 +3,7 @@
 The reference has **no** checkpointing: all stream state (FIR tails,
 oscillator phase, demod history) is implicit in GPU buffers and C++ members
 (SURVEY.md section 5).  Here the entire stream state is one explicit pytree,
-so checkpointing is a flatten + np.savez — a capability the TPU build adds.
+so checkpointing is a flatten + np.savez — a capability this build adds.
 """
 
 from __future__ import annotations

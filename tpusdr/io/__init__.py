@@ -2,7 +2,7 @@
 
 The analog of the reference's CPU-side endpoints: FileReader
 (/root/reference/src/filters/FileReader.cpp), HackrfSource (live USB RX,
-HackrfSource.cpp — no radios on TPU hosts, so the live path is a TCP/UDP IQ
+HackrfSource.cpp — no radio on the accelerator host, so the live path is a TCP/UDP IQ
 socket), and AacFileWriter (AacFileWriter.cpp — FFmpeg is out of scope, so
 audio lands as WAV/raw PCM; see SURVEY.md section 2.9).
 """

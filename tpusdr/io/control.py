@@ -3,7 +3,7 @@
 The reference's HackrfSource is not just a byte pipe: it selects a device by
 index/serial (/root/reference/src/filters/HackrfSource.cpp:105-161) and its
 ``start``/``stop`` apply frequency, sample rate, and gains to the radio
-(HackrfSource.cpp:263-283).  TPU hosts have no USB radio, so live IQ arrives
+(HackrfSource.cpp:263-283).  The accelerator host has no USB radio, so live IQ arrives
 over TCP (io/sources.SocketIqSource); this module adds the missing control
 half: a newline-delimited-JSON protocol to whatever program feeds that
 socket (e.g. a hackrf_transfer shim on the RF host).

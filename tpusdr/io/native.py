@@ -1,7 +1,7 @@
 """ctypes bindings for the native host runtime (native/tpusdr_native.cpp).
 
-Loads ``libtpusdr_native.so`` (built by ``make -C native`` or
-``python -m tpusdr.io.native --build``).  Every entry point has a NumPy
+Loads ``libtpusdr_native.so``, building it from the committed source on
+first use (or ``make -C native`` / ``python -m tpusdr.io.native --build``).  Every entry point has a NumPy
 fallback so the framework runs without the native library — the native path
 exists to keep a 20+ Msps ingest loop off the GIL (the role the reference's
 C++ BufferPool/FileReader/HackrfSource stack plays, SURVEY.md section 2.3).
@@ -29,17 +29,27 @@ _tried = False
 
 
 def build(quiet: bool = True) -> bool:
-    """Compile the native library in-tree. Returns success."""
+    """Compile the native library in-tree. Returns success.
+
+    The build is atomic: ``make`` writes a file named for this process and
+    ``os.replace`` moves it into place, so processes that build at the same
+    time (parallel test workers) never load a half-written library."""
+    tmp = f"{_SO_PATH}.{os.getpid()}.tmp"
     try:
         r = subprocess.run(
-            ["make", "-C", os.path.abspath(_NATIVE_DIR)],
+            ["make", "-C", os.path.abspath(_NATIVE_DIR), f"TARGET={os.path.basename(tmp)}"],
             capture_output=quiet,
             check=False,
         )
-        return r.returncode == 0
     except OSError as e:  # no make/g++
         log.warning("native build unavailable: %s", e)
         return False
+    if r.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        return False
+    os.replace(tmp, _SO_PATH)
+    return True
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -50,12 +60,12 @@ def get_lib() -> Optional[ctypes.CDLL]:
     _tried = True
     if not os.path.exists(_SO_PATH):
         if not build():
-            log.info("native library not built; using NumPy fallbacks")
+            log.info("native library not built; host conversions use NumPy")
             return None
     try:
         lib = ctypes.CDLL(_SO_PATH)
     except OSError as e:
-        log.warning("failed to load %s: %s", _SO_PATH, e)
+        log.warning("failed to load %s: %s; host conversions use NumPy", _SO_PATH, e)
         return None
 
     lib.tsdr_ring_create.restype = ctypes.c_void_p
@@ -105,7 +115,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
         ctypes.c_size_t,
     ]
     _lib = lib
-    log.debug("native library loaded from %s", _SO_PATH)
+    log.info("native library loaded from %s", _SO_PATH)
     return _lib
 
 

@@ -1,13 +1,13 @@
 """RF-host shim: the runnable program that stands where the reference's
 HackrfSource + HackrfSession stood.
 
-TPU hosts have no USB radios, so the radio lives on a separate RF host and
+The accelerator host has no USB radio, so the radio lives on a separate RF host and
 this shim runs THERE, next to the hardware: it implements the control
 COMMANDS (io/control.py — device select by index/serial, freq/rate/gain,
 start/stop, exactly the libhackrf surface of
 /root/reference/src/filters/HackrfSource.cpp:105-161, 263-283 and the
 process-wide session handling of src/HackrfSession.cpp:43-94) and pushes
-interleaved int8 IQ to a data socket that a SocketIqSource on the TPU host
+interleaved int8 IQ to a data socket that a SocketIqSource on the accelerator host
 consumes.
 
 Driver backends plug in behind a 6-method pull protocol (``SdrDriver``):
@@ -17,7 +17,7 @@ Driver backends plug in behind a 6-method pull protocol (``SdrDriver``):
     center frequency moves the stations' observed offsets exactly as real
     hardware would.
   * ``SoapySdrDriver`` — a thin SoapySDR wrapper for real hardware
-    (HackRF, RTL-SDR, ...), import-gated: TPU CI has no SoapySDR and no
+    (HackRF, RTL-SDR, ...), import-gated: CI has no SoapySDR and no
     radio, so it raises with instructions unless the module is present.
 
 Retune-flush protocol: every data byte the shim writes is counted; the

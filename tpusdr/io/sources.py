@@ -36,9 +36,8 @@ _DTYPES = {
 
 #: wire-format -> upload dtype: integer IQ travels as PACKED WORDS, one per
 #: complex sample (int8 pair -> int16 word, int16 pair -> int32 word).
-#: Identical bytes, friendlier device layout: sub-word int8 arrays load 5x
-#: slower on v5e than the same bytes viewed as words
-#: (benchmarks/int8_front_probe.py; graph/blocks.py IqToComplex).
+#: Identical bytes; the word layout was chosen on the former target, where
+#: sub-word int8 loads were slow (graph/blocks.py IqToComplex).
 # queue sentinel: the reader's socket went silent (distinct from a clean
 # EOF, which enqueues None) — the consumer raises TimeoutError on it
 _SILENT = object()
@@ -125,13 +124,16 @@ class SyntheticIqSource:
         num_blocks: int | None = None,
         amplitude: float = 0.9,
     ) -> "SyntheticIqSource":
-        """FM-modulated tone at ``carrier_offset`` from center."""
+        """FM-modulated tone at ``carrier_offset`` from center.
+
+        The phase uses the tone's closed-form integral, so it stays
+        continuous across blocks of any length."""
 
         def make(t: np.ndarray) -> np.ndarray:
-            audio = np.sin(2 * np.pi * audio_hz * t)
+            w = 2 * np.pi * audio_hz
             phase = (
                 2 * np.pi * carrier_offset * t
-                + 2 * np.pi * deviation * np.cumsum(audio) / sample_rate
+                + 2 * np.pi * deviation * (1.0 - np.cos(w * t)) / w
             )
             return (amplitude * np.exp(1j * phase)).astype(np.complex64)
 

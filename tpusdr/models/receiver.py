@@ -1,7 +1,7 @@
 """Single-channel RF -> PCM receiver builders.
 
-TPU-native re-design of the reference's RfToPcmAudioFactory
-(/root/reference/src/filters/factories/RfToPcmAudioFactory.cpp:130-317):
+Re-design of the reference's RfToPcmAudioFactory
+(reference src/filters/factories/RfToPcmAudioFactory.cpp:130-317):
 the same logical chain —
 
     [iq convert] -> freq shift -> RF lowpass FIR (decimate) ->
@@ -92,8 +92,8 @@ def _shift_and_fir_stages(
     """Front-end blocks: frequency shift + RF decimation cascade.
 
     With ``fold_shift`` (default), the shift is folded into stage 1's tap
-    matrix (FreqShiftFir): the full-rate NCO + multiply HBM pass vanishes
-    and the rotation runs post-decimation.  Falls back to the explicit
+    matrix (FreqShiftFir): the full-rate NCO + multiply pass over device
+    memory vanishes and the rotation runs post-decimation.  Falls back to the explicit
     FreqShift block when there is no shift or folding is disabled.
     """
     blocks: list[tuple[str, object]] = []
@@ -130,7 +130,7 @@ def fm_receiver(
     input_format: str = "cf32",
     db_attenuation: float = -60.0,
     fir_mode: str = "auto",
-    use_fused: bool | str = "auto",
+    use_fused: bool = False,
     multistage: bool = True,
     fold_shift: bool = True,
 ) -> tuple[Chain, ReceiverSpec]:
@@ -140,13 +140,11 @@ def fm_receiver(
     (the reference's tunedFrequency - channelFrequency oscillator,
     RfToPcmAudioFactory.cpp:224-226, sign folded into the NCO).
 
-    ``use_fused=True`` replaces shift -> FIR -> demod with the single fused
-    Pallas kernel (graph/blocks.py FusedFmDemod).  The default "auto"
-    takes the fused front end exactly when it measured faster: the
-    decimation plan collapses to one stage anyway and the banded kernel
-    accepts the shape (wbfm 20 Msps: fused 4982.6 vs unfused 4674.6 Msps,
-    BENCH_configs_r04.json); multi-stage plans keep the unfused cascade
-    (fewer MACs than one big stage).
+    ``use_fused=True`` replaces shift -> FIR cascade -> demod with one
+    FusedFmDemod block (graph/blocks.py): a single-stage folded-shift FIR
+    and the discriminator.  The default keeps the unfused multi-stage
+    cascade, which needs fewer MACs than one big stage; which of the two is
+    faster on the GPU is not measured yet.
 
     ``multistage=True`` splits a large RF decimation into a spec-equivalent
     cascade (design.decimation_stages) — ~2-4x fewer MACs/input at D=50
@@ -165,7 +163,7 @@ def fm_receiver(
     # createLowPassTaps spec, RfToPcmAudioFactory.cpp:151-166 style).
     cutoff = channel_width / 2.0
     transition = channel_width / 2.0
-    if multistage and use_fused is not True:
+    if multistage and not use_fused:
         rf_stages = design.decimation_stages(
             rf_sample_rate, cutoff, transition, db_attenuation, d1
         )
@@ -173,18 +171,6 @@ def fm_receiver(
         rf_stages = [
             (design.lowpass_taps(rf_sample_rate, cutoff, transition, db_attenuation), d1)
         ]
-    if use_fused == "auto":
-        # 'auto' resolves to the chain that measured FASTER on chip at the
-        # design shape.  r4 measured the fused Pallas front end ahead
-        # (4983 vs 4675 Msps); r5's re-measurement with the improved
-        # kernels flipped it: the unfused XLA chain (folded-shift MXU
-        # FreqShiftFir) wins 5596 vs 5126 (BENCH_configs_r05, spreads
-        # 4.7/2.5%) because the Pallas path is capped by this stack's
-        # ~60-80 GB/s HBM->VMEM DMA rate while XLA's window
-        # materialization runs at its 251-561 GB/s copy rates
-        # (PROFILE_r05.json dma_floor).  The fused front end stays
-        # opt-in (use_fused=True) for shapes/stacks where DMA is faster.
-        use_fused = False
     rf_taps = rf_stages[0][0]  # single-stage taps for the fused path
 
     gain = demod.quad_fm_demod_gain(quad_rate, channel_width)

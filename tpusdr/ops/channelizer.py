@@ -2,10 +2,10 @@
 
 The reference has no channelizer: multi-channel reception there is N
 independent single-channel graphs sharing one source
-(/root/reference/src/applications/sdrtest.cpp:331-364 — "embarrassing channel
+(reference src/applications/sdrtest.cpp:331-364 — "embarrassing channel
 parallelism").  A PFB channelizer computes all M channels for roughly the
 cost of one FIR + one FFT, and its output channel axis is the natural mesh
-axis for TPU sharding (BASELINE.md config 4) — so this is both a capability
+axis for sharding (BASELINE.md config 4) — so this is both a capability
 and a performance win over the reference design.
 
 Math: with prototype lowpass h (length padded to P*M),
@@ -15,7 +15,7 @@ Math: with prototype lowpass h (length padded to P*M),
 
 so channel k equals (downconvert by k*fs/M -> lowpass h -> decimate M).
 ``v`` is a static gather + einsum; the DFT across branches is one ifft along
-the channel axis (length M — ideally a power of two for the TPU FFT).
+the channel axis (length M — ideally a power of two for the four-step DFT).
 
 Streaming carry: the last P*M - 1 input samples.
 """
@@ -99,7 +99,7 @@ def _branch_filter(ext_r: jnp.ndarray, plan: ChannelizerPlan) -> jnp.ndarray:
     Reshaping ext to (F+P, M) frames and flipping the lane axis gives
     Z[k, r] = ext[k*M + M-1-r], so v[m, r] = sum_p h_poly[p, r] *
     Z[m+P-1-p, r] — P shifted slices and one multiply-add each, instead of
-    a (F, P, M) scattered gather (5x faster on v5e, same math)."""
+    a (F, P, M) scattered gather (same math)."""
     m = plan.num_channels
     p_taps = plan.taps_per_phase
     f = plan.frames_out
@@ -135,10 +135,8 @@ def _branch_filter_cm(zt: jnp.ndarray, h_cm: jnp.ndarray, plan) -> jnp.ndarray:
 
     zt: (..., M, F+P); h_cm[p, r'] = h_poly[p, M-1-r'] (flip pre-folded).
     v'[r', k] = sum_p h_cm[p, r'] * zt[r', k + P-1-p]: P shifted lane
-    slices, each a rank-matched (M, 1)-broadcast multiply-add — the frame
-    axis rides the full 128-lane width instead of M lanes (the row-major
-    form wastes (128-M)/128 of every register row for M < 128 — the
-    fir_transpose_probe trap; measured as config 4's bottleneck, r2).
+    slices, each a rank-matched (M, 1)-broadcast multiply-add — the long
+    frame axis is the minor one instead of the M-wide channel axis.
     """
     p_taps, f = plan.taps_per_phase, plan.frames_out
     acc = None
@@ -155,17 +153,14 @@ def channelize_apply(state, x, plan: ChannelizerPlan, channel_major: bool = Fals
     Input (..., block_in) Complex pair (or complex64 for CPU tests);
     output (..., F, M) where out[..., f, k] is sample f of channel k
     (channel k centered at +k*fs/M, interpreted mod M).  The cross-branch
-    DFT runs as an MXU matmul (ops/fft.py) — no FFT HLO.
+    DFT runs as a matmul (ops/fft.py) — no FFT HLO.
 
     ``channel_major=True`` returns (..., M, F) computed natively in that
     layout: frames transposed once on entry, branch FIR along lanes, DFT as
     a (M, M) x (M, F) contraction — both the lane flip and the branch
     reversal are folded into the compile-time tap/DFT constants.  Same math
     (float32-reassociated); avoids every narrow-minor-axis intermediate of
-    the row-major form (the fir_transpose_probe ~10x lane-waste trap).
-    Measured on v5e (r4, PROFILE_r04.json): the 64-channel channelizer
-    stage runs at 4.0 Gsps alone / 5.7 Gsps as a composed prefix — the
-    chain bottleneck moved downstream (the deemphasis IIR, since fixed).
+    the row-major form.
     """
     if x.shape[-1] != plan.block_in:
         raise ValueError(f"expected block of {plan.block_in}, got {x.shape[-1]}")

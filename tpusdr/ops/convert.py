@@ -1,9 +1,9 @@
 """Sample-format conversion ops.
 
-TPU-native replacement for Int8ToFloat (/root/reference/src/filters/
-Int8ToFloat.cpp:89-94, gsdrInt8ToNormFloat) plus the int16 and interleaved-IQ
-variants an SDR front end needs.  All 1:1 stateless elementwise maps — pure
-XLA (VPU), fused into whatever consumes them.
+Replacement for Int8ToFloat (reference src/filters/Int8ToFloat.cpp:89-94,
+gsdrInt8ToNormFloat) plus the int16 and interleaved-IQ variants an SDR
+front end needs.  All 1:1 stateless elementwise maps — pure XLA, fused
+into whatever consumes them.
 """
 
 from __future__ import annotations
@@ -36,14 +36,10 @@ def float_to_int16(x: jnp.ndarray) -> jnp.ndarray:
 def interleaved_to_complex(x: jnp.ndarray) -> Complex:
     """[i0, q0, i1, q1, ...] float (..., 2N) -> Complex pair of length N.
 
-    Deinterleaves with flat stride-2 slices: f32 pairs have no wider word
-    to pack into on this backend (no f64/i64), so unlike the int formats
-    the split must happen on device — and the reshape-to-(N, 2)-and-slice
-    form leaves the 2-wide minor axis that TPU tiles to 128 lanes (the
-    int8 path's 13x trap, benchmarks/profile_am_stages.py).  Strided
-    slices keep every intermediate flat; Mosaic lowers them to lane
-    shuffles (benchmarks/float_front_probe.py).  Bit-exact vs the reshape
-    form (tests/test_osc_convert.py)."""
+    Deinterleaves with flat stride-2 slices, keeping every intermediate
+    flat instead of a 2-wide minor axis (slow on the former target; the
+    GPU is unmeasured).  Bit-exact vs the reshape form
+    (tests/test_osc_convert.py)."""
     if x.shape[-1] % 2:
         raise ValueError(
             f"interleaved IQ needs an even last axis, got {x.shape[-1]}"
@@ -62,18 +58,12 @@ def int8_iq_to_complex(x: jnp.ndarray, scale: float = INT8_SCALE) -> Complex:
 
     Deinterleave is done by bitcasting each little-endian (i, q) byte pair
     to one int16 word and splitting it with arithmetic shifts, keeping
-    every array flat (..., N): the naive reshape-to-(N, 2)-and-slice form
-    leaves a 2-wide minor axis that TPU tiles to 128 lanes — 126/128 of
-    every register row wasted, measured 13x slower than the big RF FIR on
-    v5e (benchmarks/profile_am_stages.py; same trap as
-    benchmarks/fir_transpose_probe.py).  Bit-exact vs the reshape form.
+    every array flat (..., N) instead of a 2-wide minor axis.  Bit-exact
+    vs the reshape form.
 
-    NOTE: this is the correctness fallback for device-resident int8 arrays.
-    On v5e the int8 load + bitcast itself caps at ~1.45 Gsps of int8
-    scalars; presenting the same bytes as packed int16 words and splitting
-    with ``int8_words_to_complex`` measured 7.47 Gsps
-    (benchmarks/int8_front_probe.py, 2026-08-19) — the production front end
-    uploads words (see pack_int8_words).
+    NOTE: this is the correctness fallback for device-resident int8 arrays;
+    the production front end uploads packed int16 words (see
+    pack_int8_words and ``int8_words_to_complex``).
     """
     w = lax.bitcast_convert_type(x.reshape(x.shape[:-1] + (-1, 2)), jnp.int16)
     return int8_words_to_complex(w, scale)
@@ -93,11 +83,10 @@ def int8_words_to_complex(w: jnp.ndarray, scale: float = INT8_SCALE) -> Complex:
     the bytes of the int8 interleaved wire format, viewed as int16 on the
     host for free (numpy .view, pack_int8_words).
 
-    This is the fast path: device-resident int8 arrays are sub-word on TPU
-    and their load + bitcast measured 1.45 Gsps of int8 scalars on v5e,
-    while the identical bytes as int16 words split at 7.47 Gsps — 5.1x
-    (benchmarks/int8_front_probe.py, 2026-08-19).  Bit-exact vs the int8
-    forms (validated in the probe and tests/test_osc_convert.py).
+    This is the production front end: on the former target sub-word int8
+    loads were several times slower than splitting words; on the GPU the
+    two are unmeasured (ROADMAP Queue 1, item 7).  Bit-exact vs the int8
+    forms (tests/test_osc_convert.py).
     """
     i = jnp.right_shift(jnp.left_shift(w, 8), 8)  # low byte, sign-extended
     q = jnp.right_shift(w, 8)  # high byte (arithmetic shift)

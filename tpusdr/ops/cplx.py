@@ -1,12 +1,11 @@
 """Real-pair complex arithmetic — the device-side complex representation.
 
-The TPU backend used here (and TPUs generally, at the XLA level) have no
-native complex dtype: XLA decomposes complex math into real pairs, and this
-backend rejects complex64 outright.  So the framework's device path
-represents a complex stream explicitly as a ``Complex(re, im)`` pair of
-float32 arrays — a pytree, so it flows through jit/scan/shard_map/pallas
-unchanged, and every op is plain VPU/MXU float math with no layout
-surprises.
+The framework's device path represents a complex stream explicitly as a
+``Complex(re, im)`` pair of float32 arrays — a pytree, so it flows through
+jit/scan/shard_map unchanged, and every op is plain float math.  The layout
+was forced by the former target, whose backend had no complex dtype; the
+GPU has one, and whether native complex64 is faster there is open
+(ROADMAP Queue 3, item 2).
 
 ``ensure_pair`` / ``maybe_native`` let the pure-math ops accept either
 representation: CPU-side tests use numpy complex oracles, the device path

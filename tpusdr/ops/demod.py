@@ -1,7 +1,7 @@
 """Quadrature demodulators and elementwise signal ops.
 
-TPU-native replacements for the reference's demod/elementwise filters:
-  * QuadFmDemod (/root/reference/src/filters/QuadFmDemod.cpp:76-113,
+Replacements for the reference's demod/elementwise filters:
+  * QuadFmDemod (reference src/filters/QuadFmDemod.cpp:76-113,
     gsdrQuadFmDemod): phase-discriminator FM demod, N+1 inputs -> N outputs
     with a 1-sample carry; gain = Fs / (2*pi*channelWidth)
     (RfToPcmAudioFactory.cpp:124-126).

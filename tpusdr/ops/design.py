@@ -1,9 +1,9 @@
 """FIR filter design: Parks-McClellan (Remez exchange) + Kaiser window.
 
-TPU-native replacement for the reference's external C dependency
+Replacement for the reference's external C dependency
 kernrj/remez-exchange (`remezGenerateLowPassTaps`,
-`remezGenerateSingleBandPassTaps` — used by
-/root/reference/src/filters/factories/RfToPcmAudioFactory.cpp:87-110 and
+`remezGenerateSingleBandPassTaps` — used by reference
+src/filters/factories/RfToPcmAudioFactory.cpp:87-110 and
 src/applications/am_test.cpp:176-195).  Includes the same two tap-count
 estimators (Bellanger and Fred Harris, RfToPcmAudioFactory.cpp:30-47) and the
 same retry ladder over candidate tap counts (RfToPcmAudioFactory.cpp:66-105),
@@ -11,7 +11,7 @@ with a Kaiser-window design as the final fallback (the reference apps carry a
 `kaiserWindowLength` helper for the same purpose, nbfm_test.cpp:87-93).
 
 All of this is host-side NumPy: tap design happens once at graph-build time,
-never on the TPU hot path.
+never on the device hot path.
 """
 
 from __future__ import annotations
@@ -573,14 +573,13 @@ def decimation_stages(
             fs = fs_out
         return specs
 
-    # TPU-lane-aware cost model.  The polyphase kernel (ops/fir.py
+    # 128-lane cost model, chosen on the former target and unmeasured on
+    # the GPU (ROADMAP Queue 1, item 4).  The polyphase path (ops/fir.py
     # _fir_poly) makes ceil(T/D) passes over frames whose minor axis is D;
-    # TPU arrays tile the minor axis to 128 lanes, so a stage's effective
+    # that target tiled the minor axis to 128 lanes, so a stage's effective
     # traffic per input sample is ceil(T/D) * max(D,128)/D, NOT T/D MACs.
-    # Measured (benchmarks/fir_transpose_probe.py, v5e): D=50/T=546 runs
-    # 6x faster than D=10/T=33 per input sample despite 2.5x more MACs —
-    # lane utilization dominates.  Small-D stages are only worth it when
-    # every candidate stage keeps D large.
+    # Small-D stages are only worth it when every candidate stage keeps D
+    # large.
     LANE = 128.0
 
     def stage_cost(t_est: int, d: int) -> float:

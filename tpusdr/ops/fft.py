@@ -1,16 +1,15 @@
-"""DFT/FFT as MXU matmuls — the TPU-native spectral engine.
+"""DFT/FFT as matmuls — the framework's spectral engine.
 
-The TPU backend exposes no FFT primitive (probed at bring-up; XLA's FFT HLO
-is unimplemented there), and TPUs in general run FFTs poorly compared to
-their 128x128 systolic matmul.  So spectra are computed as *matrix products*:
+Spectra are computed as *matrix products* (the former target had no FFT
+primitive; on the GPU, cuFFT through jnp.fft is the unmeasured alternative,
+ROADMAP Queue 3, item 2):
 
   * n <= 512: one direct DFT matmul — X = x W, 4 real (batch, n)x(n, n)
-    matmuls that map straight onto the MXU.
+    matmuls.
   * larger n: Cooley-Tukey four-step split n = n1*n2 (factors chosen near
     sqrt(n)): DFT_n1 along columns -> twiddle -> DFT_n2 along rows ->
     transpose.  Each stage is again a batched matmul; total cost
-    O(n*(n1+n2)) MACs on the MXU vs O(n log n) shuffle-bound work a classic
-    FFT would pay on the VPU.
+    O(n*(n1+n2)) MACs.
 
 This is the engine behind the overlap-save FIR path and the channelizer's
 cross-branch DFT (ops/channelizer.py).  All data is pair-represented
@@ -29,12 +28,12 @@ from jax import lax
 
 from tpusdr.ops.cplx import Complex
 
-# Largest direct DFT matmul. 512 keeps the (n, n) operand comfortably in
-# VMEM-sized tiles while saturating the 128-lane MXU.
+# Largest direct DFT matmul; chosen on the former target, unmeasured on the
+# GPU (ROADMAP Queue 1, item 5).
 _MAX_DIRECT = 512
 
-#: matmul precision for DFT matrices; HIGHEST = float32-faithful on MXU
-#: (bf16x3 passes). Relax to DEFAULT for speed once accuracy is verified.
+#: matmul precision for DFT matrices: HIGHEST is float32-faithful (no TF32
+#: step on the GPU).
 PRECISION = lax.Precision.HIGHEST
 
 

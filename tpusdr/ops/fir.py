@@ -1,35 +1,38 @@
 """Decimating FIR filtering: the framework's hottest op.
 
-TPU-native replacement for the reference's Fir filter + external gsdr CUDA
-kernels (gsdrFirFF/FC/CC/CF — /root/reference/src/filters/Fir.cpp:220-268).
-Streaming semantics mirror Fir.cpp exactly:
+Replacement for the reference's Fir filter + external gsdr CUDA kernels
+(gsdrFirFF/FC/CC/CF — reference src/filters/Fir.cpp:220-268).  Streaming
+semantics mirror Fir.cpp exactly:
 
   * with A available input samples, T taps and decimation D, the number of
     outputs is (A - (T-1)) // D            (Fir.cpp:141-187)
   * producing M outputs consumes M*D input samples and retains the last
     T-1 samples as history                 (Fir.cpp:271-276)
 
-On TPU the retained history is not a relocatable GPU buffer
+The retained history is not a relocatable device buffer
 (RelocatableResizableBuffer.cpp:79-103) but an explicit carry array of
 ``T-1`` samples, which doubles as the overlap-save halo under time-block
 sharding (SURVEY.md section 5, "long-context analog").
 
 Execution paths, selectable per call site (``mode``):
-  * 'mxu'   — banded matmul on the systolic array (the default): c
-              consecutive outputs share one row of input window, so the
-              decimating FIR y[r*c+j] = sum_k h_rev[k] x[r*c*D + j*D + k]
+  * 'mxu'   — banded matmul (the default): c consecutive outputs share one
+              row of input window, so the decimating FIR
+              y[r*c+j] = sum_k h_rev[k] x[r*c*D + j*D + k]
               is a dense (rows, K) x (K, c) contraction against a
-              compile-time-constant banded tap matrix.  HBM traffic is
-              ~1 read of the signal (window overlap (T-D)/(c*D)); the MACs
-              ride the 128x128 MXU instead of lane-padded VPU adds.
+              compile-time-constant banded tap matrix.  The signal is read
+              about once (window overlap (T-D)/(c*D)); the MACs run as a
+              matrix product.
   * 'conv'  — jax.lax.conv_general_dilated with window stride D.
-  * 'poly'  — polyphase frames + accumulated slice-einsum on the VPU
+  * 'poly'  — polyphase frames + accumulated slice-einsum
               (y[m] = sum_p X[m+p] . H[p] over (frames, D) blocks).
   * 'fft'   — segmented overlap-save convolution on the matmul-DFT for
               long taps (the reference has no FFT path at all).
 
 All paths operate on the last axis and broadcast over leading batch axes
-(used by the polyphase channelizer and multi-channel demod banks).
+(used by the polyphase channelizer and multi-channel demod banks).  The
+banded matmul contracts at ``FIR_PRECISION`` unless a call passes its own
+``precision``; 'poly' and 'conv', which are not matmul-bound, contract at
+HIGHEST (exact float32, no TF32 step on the GPU).
 
 Complex data / real taps (the dominant SDR case, gsdrFirFC) is computed as a
 2-channel real problem; complex taps use the 3-multiply split.
@@ -38,7 +41,6 @@ Complex data / real taps (the dominant SDR case, gsdrFirFC) is computed as a
 from __future__ import annotations
 
 import functools
-import os
 from typing import Literal
 
 import numpy as np
@@ -52,26 +54,38 @@ from tpusdr.ops import fft as mmfft
 from tpusdr.utils.numerics import cdiv, next_pow2, round_up
 
 FirMode = Literal["auto", "mxu", "conv", "poly", "fft"]
+FIR_MODES: tuple[str, ...] = ("auto", "mxu", "conv", "poly", "fft")
 
 # Minimum output count for the banded-matmul path to pay for its tile
-# padding; tiny blocks stay on the fused VPU path.
+# padding; tiny blocks stay on the fused elementwise paths.  Chosen on the
+# former target and unmeasured on the GPU (ROADMAP Queue 1, item 4).
 _MXU_MIN_OUTPUTS = 16
 
-#: MXU accumulation precision for the banded-matmul path.  Accuracy ladder
-#: (benchmarks/fir_precision_probe.py): HIGHEST/HIGH/DEFAULT = -142/-99/
-#: -53 dB vs float64 at the WBFM RF shape.  r4 measured the three at the
-#: same ~5.5 Gsps — the materialized window matrix made the path HBM-bound
-#: and HIGHEST free.  The r5 band-split VIEW form removed that traffic and
-#: the path became MXU-PASS-bound: on chip, HIGH (bf16x3) measures fir
-#: 12707 vs 7009 Msps and the whole WBFM chain 10278 vs 6111 (perf-gate
-#: method, 2026-08-21).  Default is now HIGH: -99 dB sits 39 dB beyond
-#: the -60 dB design bar and 200x inside the reference's 1e-3 FIR
-#: tolerance; TPUSDR_FIR_PRECISION=highest restores bf16x6.
-_MXU_PRECISION = {
-    "default": lax.Precision.DEFAULT,
-    "high": lax.Precision.HIGH,
-    "highest": lax.Precision.HIGHEST,
-}[os.environ.get("TPUSDR_FIR_PRECISION", "high")]
+#: Contraction precision of the banded-matmul path.  On the GPU a float32
+#: dot at DEFAULT or HIGH runs in TF32 (10 mantissa bits), whose error is
+#: relative to the whole capture's power, so a channel far below the
+#: capture's strongest signal can miss the -60 dB bar.  Measured in
+#: chip_smoke.py's interferer case (wanted FM channel 40 dB below a carrier
+#: in the same capture) on an H100 (700 W) at the 20 Msps WBFM RF stage:
+#: DEFAULT/HIGH -53 dB; BF16_BF16_F32_X3 (three bf16 passes) -88 dB at
+#: 0.64x HIGHEST's time; HIGHEST -124 dB (PERF.md).  The bf16x3 preset
+#: would keep the 10 dB margin, but XLA's CPU backend rejects it on small
+#: dots it fuses (tests/test_graph_chain.py flat-vs-scan), so the default
+#: stays exact float32 until a bf16 split that every backend lowers is
+#: measured (ROADMAP Queue 3, item 3).
+FIR_PRECISION = lax.Precision.HIGHEST
+
+#: Precision of the 'poly' and 'conv' paths and of the rational resampler's
+#: class FIRs: exact float32 whatever FIR_PRECISION says.  Their
+#: contractions are matrix-vector shaped, which backends lower elementwise.
+EXACT = lax.Precision.HIGHEST
+
+
+def check_mode(mode: str) -> str:
+    """Validate a FIR execution path name (raises on unknown modes)."""
+    if mode not in FIR_MODES:
+        raise ValueError(f"unknown FIR mode {mode!r} (choose from {FIR_MODES})")
+    return mode
 
 
 def num_outputs(available: int, num_taps: int, decimation: int) -> int:
@@ -107,9 +121,8 @@ def fir_extended(
     array (CPU test convenience); the return matches the input
     representation.  All device math is real float32.
 
-    ``precision`` overrides the MXU accumulation precision for the banded-
-    matmul path (default: the module-level _MXU_PRECISION env constant) —
-    probes vary it per call instead of reloading the module.
+    ``precision`` overrides ``FIR_PRECISION`` for this call's banded
+    matmul (a ``lax.Precision`` or ``lax.DotAlgorithmPreset``).
     """
     T = np.shape(taps)[-1] if not isinstance(taps, cplx.Complex) else taps.shape[-1]
     D = int(decimation)
@@ -131,10 +144,12 @@ def fir_extended(
     usable = (T - 1) + M * D
     x_ext = x_ext[..., :usable]
 
+    check_mode(mode)
+    prec = FIR_PRECISION if precision is None else precision
     if mode == "auto":
-        # The banded matmul wins at every production shape measured on v5e
-        # (benchmarks/fir_mxu_probe.py: 4-40x over poly at T>=64); tiny
-        # blocks stay on the fused VPU paths where tile padding dominates.
+        # The banded matmul was the fastest path at every production shape
+        # on the former target; tiny blocks stay on the elementwise paths
+        # where tile padding dominates.  Unmeasured on the GPU.
         if M >= _MXU_MIN_OUTPUTS:
             mode = "mxu"
         else:
@@ -143,9 +158,10 @@ def fir_extended(
     if mode == "fft":
         return _fir_fft_dispatch(x_ext, taps, D, M, pair_in)
 
-    impl = {"poly": _fir_poly, "conv": _fir_conv, "mxu": _fir_mxu}[mode]
-    if mode == "mxu":
-        impl = functools.partial(impl, precision=precision)
+    impl = functools.partial(
+        {"poly": _fir_poly, "conv": _fir_conv, "mxu": _fir_mxu}[mode],
+        precision=prec if mode == "mxu" else EXACT,
+    )
 
     if not cplx_x and not cplx_h:  # FF
         return impl(jnp.asarray(x_ext), jnp.asarray(taps), D, M)
@@ -165,7 +181,7 @@ def fir_extended(
         out = cplx.Complex(y[0], y[1])
     elif cplx_x and cplx_h:  # CC
         if mode == "mxu":
-            out = _fir_mxu_cc(xp, hp, D, M, precision=precision)
+            out = _fir_mxu_cc(xp, hp, D, M, precision=prec)
         else:  # 3-multiply complex convolution
             k1 = impl(xp.re + xp.im, hp.re, D, M)
             k2 = impl(xp.im, hp.re + hp.im, D, M)
@@ -177,7 +193,9 @@ def fir_extended(
     return out if pair_in else cplx.maybe_native(out, proto)
 
 
-def _fir_conv(x: jnp.ndarray, taps: jnp.ndarray, D: int, M: int) -> jnp.ndarray:
+def _fir_conv(
+    x: jnp.ndarray, taps: jnp.ndarray, D: int, M: int, precision=None
+) -> jnp.ndarray:
     """lax.conv_general_dilated path (real-only; caller splits complex)."""
     batch_shape = x.shape[:-1]
     lhs = x.reshape((-1, 1, x.shape[-1])).astype(jnp.float32)
@@ -188,24 +206,25 @@ def _fir_conv(x: jnp.ndarray, taps: jnp.ndarray, D: int, M: int) -> jnp.ndarray:
         window_strides=(D,),
         padding="VALID",
         dimension_numbers=("NCH", "OIH", "NCH"),
+        precision=precision,
         preferred_element_type=jnp.float32,
     )
     return out.reshape(batch_shape + (M,))
 
 
-def _fir_poly(x: jnp.ndarray, taps: jnp.ndarray, D: int, M: int) -> jnp.ndarray:
+def _fir_poly(
+    x: jnp.ndarray, taps: jnp.ndarray, D: int, M: int, precision=None
+) -> jnp.ndarray:
     """Polyphase-frame accumulation path (real-only; caller splits complex).
 
     taps reversed and zero-padded to P*D; x zero-padded to (M+P-1)*D and
     reshaped into non-overlapping (frame, D) blocks; the decimating FIR is
     then y[m] = sum_p frames[m+p] . H[p] — P shifted slices, each reduced
     over D and accumulated.  The P partial products are accumulated in a
-    Python loop rather than stacked + einsummed: XLA fuses each
-    slice-multiply-reduce-add into one VPU pass over the frames, so the
-    (P, ..., M, D) intermediate never exists.  Measured 5x faster than the
-    stack+einsum form at T=546/D=50 on v5e (benchmarks/fir_scan_probe.py:
-    3970 vs 803 Msps) — the stack materializes a P-fold copy of the signal
-    in HBM; the accumulation is a single streaming read.
+    Python loop rather than stacked + einsummed: XLA can fuse each
+    slice-multiply-reduce-add into one pass over the frames, so the
+    (P, ..., M, D) intermediate never exists — the stack form would write
+    a P-fold copy of the signal to device memory.
     """
     T = taps.shape[-1]
     P = cdiv(T, D)
@@ -222,17 +241,18 @@ def _fir_poly(x: jnp.ndarray, taps: jnp.ndarray, D: int, M: int) -> jnp.ndarray:
     acc = jnp.zeros(x.shape[:-1] + (M,), jnp.float32)
     for p in range(P):
         w = lax.slice_in_dim(frames, p, p + M, axis=-2)
-        acc = acc + jnp.einsum("...md,d->...m", w, h_pad[p])
+        acc = acc + jnp.einsum("...md,d->...m", w, h_pad[p], precision=precision)
     return acc
 
 
 def _mxu_tile_width(T: int, D: int, M: int) -> int:
     """Outputs per matmul row-tile.
 
-    c = 128 matches the MXU lane width; for non-decimating long filters a
-    wider tile caps the window-overlap duplication (K/G = 1 + (T-D)/(c*D))
-    at ~2x.  Shrink toward M for short blocks so the row padding stays
-    bounded.
+    c = 128 was sized for the former target's 128x128 matrix unit and is
+    unmeasured on the GPU (ROADMAP Queue 1, item 4); for non-decimating
+    long filters a wider tile caps the window-overlap duplication
+    (K/G = 1 + (T-D)/(c*D)) at ~2x.  Shrink toward M for short blocks so
+    the row padding stays bounded.
     """
     c = max(128, round_up(cdiv(T - D, 2 * D), 128))
     if M < c:
@@ -248,8 +268,7 @@ def _mxu_row_chunks(x: jnp.ndarray, c: int, D: int, T: int, M: int):
     materialized A (~2x the signal bytes written + read back — the r2-r4
     form), the contraction is split over the band, A @ W = sum_j A_j @ W_j,
     where each A_j is a CONTIGUOUS row-slice VIEW of this reshape that XLA
-    feeds to the matmul without a copy.  Same trick as the Pallas kernel's
-    band parts, in pure XLA."""
+    feeds to the matmul without a copy."""
     G = c * D
     K = (c - 1) * D + T
     n_rows = cdiv(M, c)
@@ -277,7 +296,6 @@ def _mxu_band(taps: jnp.ndarray, c: int, D: int) -> jnp.ndarray:
 def _mxu_matmul(R, q, K, n_rows, W, c, D, M: int, precision=None) -> jnp.ndarray:
     """Banded contraction over row-chunk part views: y = sum_j A_j @ W_j."""
     G = c * D
-    prec = _MXU_PRECISION if precision is None else precision
     acc = None
     for j in range(q + 1):
         w = min(G, K - j * G)
@@ -287,7 +305,7 @@ def _mxu_matmul(R, q, K, n_rows, W, c, D, M: int, precision=None) -> jnp.ndarray
         if w < G:
             a_j = a_j[..., :w]
         term = jnp.einsum(
-            "...rk,kc->...rc", a_j, W[j * G : j * G + w, :], precision=prec
+            "...rk,kc->...rc", a_j, W[j * G : j * G + w, :], precision=precision
         )
         acc = term if acc is None else acc + term
     y = acc
@@ -297,15 +315,15 @@ def _mxu_matmul(R, q, K, n_rows, W, c, D, M: int, precision=None) -> jnp.ndarray
 def _fir_mxu(
     x: jnp.ndarray, taps: jnp.ndarray, D: int, M: int, precision=None
 ) -> jnp.ndarray:
-    """Banded-matmul path: the decimating FIR as a dense MXU contraction.
+    """Banded-matmul path: the decimating FIR as a dense contraction.
 
     Outputs are tiled c at a time: row r of the window matrix A holds the
     G + T - D input samples (G = c*D) that feed outputs [r*c, (r+1)*c);
     A[r, i] = x[r*G + i].  The banded tap matrix W[i, j] = h_rev[i - j*D]
     (zero outside the band) is a constant folded at compile time, so
     y = A @ W is one (rows, K) x (K, c) matmul — this is the gsdrFirFC hot
-    loop (/root/reference/src/filters/Fir.cpp:230-268) restated for a
-    systolic array.  FLOP overhead vs the polyphase optimum is K/T; HBM
+    loop (reference src/filters/Fir.cpp:230-268) restated as a matrix
+    product.  FLOP overhead vs the polyphase optimum is K/T; read
     duplication is K/G (~1.08 at the WBFM RF stage).
     """
     T = taps.shape[-1]
@@ -317,12 +335,11 @@ def _fir_mxu(
 def _fir_mxu_cc(
     xp: cplx.Complex, hp: cplx.Complex, D: int, M: int, precision=None
 ) -> cplx.Complex:
-    """Complex data x complex taps on the MXU.
+    """Complex data x complex taps as banded matmuls.
 
-    Uses the 4-matmul form over two shared window matrices rather than the
-    3-multiply Karatsuba split: the window materialization (K/G-duplicated
-    signal reads) dominates over MXU FLOPs, and Karatsuba would build a
-    third window tensor (re+im).
+    Uses the 4-matmul form over two shared window views rather than the
+    3-multiply Karatsuba split, which would build a third window tensor
+    (re+im).
     """
     T = hp.shape[-1]
     c = _mxu_tile_width(T, D, M)
@@ -372,7 +389,7 @@ def _fir_fft_dispatch(x, taps, D: int, M: int, pair_in: bool):
     """Segmented overlap-save convolution, then decimation.
 
     Device path (pair inputs): batched matmul-DFT over fixed-size segments
-    (ops/fft.py) — no FFT HLO, all MXU.  CPU complex64 path: native
+    (ops/fft.py) — no FFT HLO.  CPU complex64 path: native
     jnp.fft over the same segments.  Per segment, circular outputs in
     [T-1, n_fft) are linear; hop of them are kept, so concatenated
     segments reproduce the valid convolution exactly.

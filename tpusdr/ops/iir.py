@@ -1,12 +1,12 @@
 """First-order IIR sections (FM de-emphasis, DC blocker) as parallel scans.
 
 The reference ships the de-emphasis time constants (kTauEu=50us, kTauUs=75us
-— /root/reference/include/gpusdrpipeline/fm.h:20-21) but never implements the
-filter; a WBFM receiver needs it, so this is a capability the TPU build adds.
+— reference include/gpusdrpipeline/fm.h:20-21) but never implements the
+filter; a WBFM receiver needs it, so this is a capability this build adds.
 
-A first-order recurrence y[n] = a*y[n-1] + b*x[n] is a linear scan; on TPU we
+A first-order recurrence y[n] = a*y[n-1] + b*x[n] is a linear scan; we
 evaluate it with ``jax.lax.associative_scan`` over (a, b*x) pairs — O(N log N)
-work but fully parallel across the VPU, versus a sequential per-sample loop.
+work but fully parallel, versus a sequential per-sample loop.
 Carry: 1 output sample.
 """
 
@@ -61,10 +61,11 @@ def single_pole_init(batch_shape=(), dtype=jnp.float32) -> jnp.ndarray:
 def _first_order_blocked(
     a: float, bx: jnp.ndarray, y0: jnp.ndarray, block: int
 ) -> jnp.ndarray:
-    """All outputs of y[n] = a*y[n-1] + bx[n] via per-frame MXU matmuls.
+    """All outputs of y[n] = a*y[n-1] + bx[n] via per-frame matmuls.
 
-    The associative scan is log2(N) full passes over the data (~15 HBM
-    round trips for a 32k-sample axis); this form does ONE matmul pass:
+    The associative scan is log2(N) full passes over the data (~15 device
+    memory round trips for a 32k-sample axis); this form does ONE matmul
+    pass:
 
       frame f (length B), entry state s_f:
         y_f[i] = a^(i+1) * s_f + (L @ u_f)[i],  L[i, j] = a^(i-j) (i >= j)
@@ -72,8 +73,8 @@ def _first_order_blocked(
         associative scan at 1/B the traffic.
 
     L and the power vectors are compile-time constants; the (B, B) x
-    (..., F, B) contraction rides the MXU in float32 (HIGHEST precision —
-    bf16 would cap the audio path near -48 dB).  Requires N % block == 0.
+    (..., F, B) contraction runs in float32 (HIGHEST precision — bf16 or
+    TF32 would cap the audio path near -48 dB).  Requires N % block == 0.
     """
     n = bx.shape[-1]
     assert n % block == 0 and block > 1
@@ -101,8 +102,9 @@ def _first_order_blocked(
     return y.reshape(bx.shape)
 
 
-#: last-axis length at or above which the blocked MXU form beats the
-#: associative scan (one matmul pass vs log2(N) HBM passes)
+#: last-axis length at or above which the blocked matmul form beat the
+#: associative scan on the former target (one matmul pass vs log2(N)
+#: passes); unmeasured on the GPU (ROADMAP Queue 3, item 3)
 _BLOCKED_MIN_N = 4096
 _BLOCK = 256
 
@@ -112,7 +114,7 @@ def single_pole_apply(
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Streaming one-pole IIR step; carry is the previous output sample.
 
-    Long blocks take the blocked MXU form (_first_order_blocked); short or
+    Long blocks take the blocked matmul form (_first_order_blocked); short or
     non-divisible blocks fall back to the associative scan.  Both are exact
     solutions of the same recurrence (float32-reassociated)."""
     n = x.shape[-1]

@@ -1,14 +1,14 @@
 """Stream multiplication and frequency translation.
 
-TPU-native replacement for MultiplyCcc (/root/reference/src/filters/
-Multiply.cpp:131-158, gsdrMultiplyCC) and for the cosine-source + multiply
+Replacement for MultiplyCcc (reference src/filters/Multiply.cpp:131-158,
+gsdrMultiplyCC) and for the cosine-source + multiply
 idiom the reference uses for frequency shifting
 (RfToPcmAudioFactory.cpp:218-243: "Cosine" -> "Multiply").
 
 Because the oscillator phase is a closed form of the global sample index
 (see ops/osc.py), oscillator + multiply fuse into a single elementwise op —
 ``freq_shift_apply`` — with a uint32 phase carry. XLA fuses the cos/sin and
-the complex multiply into one VPU pass over the block.
+the complex multiply into one pass over the block.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Numerically-controlled oscillators (NCO) for mixing and synthesis.
 
-TPU-native replacement for CosineSource / ComplexCosineSource
-(/root/reference/src/filters/CosineSource.cpp:40-90,
+Replacement for CosineSource / ComplexCosineSource
+(reference src/filters/CosineSource.cpp:40-90,
 ComplexCosineSource.cpp): the reference carries a float phase ``mPhi`` and
 wraps it mod 2*pi each block (CosineSource.cpp:72-84), which drifts over long
 streams.  Here phase is a **uint32 fixed-point accumulator** (cycles in units
@@ -12,7 +12,7 @@ devices (each shard computes ``phase0 + offset * inc`` with wrap-around
 uint32 multiplication).
 
 Per-sample phases within a block are ``phase_u32 + k * inc_u32 (mod 2^32)``
-— a VPU iota-mul-add; the cos/sin evaluation is the only transcendental.
+— an iota-mul-add; the cos/sin evaluation is the only transcendental.
 """
 
 from __future__ import annotations
@@ -81,8 +81,9 @@ def cosine_block(phase_u32, inc_u32, num: int, amplitude: float = 1.0) -> jnp.nd
 
 
 #: above this block size, build the exponential from an outer product of
-#: two ~sqrt(N) tables: 2(N/C + C) transcendentals instead of 2N.  The
-#: VPU's cos/sin are the WBFM chain's dominant compute at 20 Msps.
+#: two ~sqrt(N) tables: 2(N/C + C) transcendentals instead of 2N (cos/sin
+#: dominated the WBFM chain's compute on the former target; the GPU is
+#: unmeasured).
 _FACTORED_THRESHOLD = 8192
 _FACTOR_C = 2048
 

@@ -15,7 +15,7 @@ rate, gain U in the passband),
 
 Because block sizes are static, (p_m, n_m) are compile-time NumPy arrays:
 the whole resampler is one static gather + one einsum — no per-sample control
-flow, fully VPU-parallel.  Streaming invariance requires N*U % D == 0 per
+flow, fully parallel.  Streaming invariance requires N*U % D == 0 per
 block (the rate planner guarantees it); the carry is the last
 ceil(T/U)-1 input samples.
 """
@@ -130,9 +130,8 @@ def _resample_real(ext: jnp.ndarray, plan: ResamplerPlan) -> jnp.ndarray:
         y[c + U*t] = sum_i h[p_c + i*U] * ext_local[n_c + t*D - i]
 
     so the whole resampler is U parallel P-tap decimate-by-D FIRs plus an
-    interleave.  No gathers: TPU sees stacked slices + one small einsum,
-    instead of a (block_out, P) scattered jnp.take (which profiled 5x
-    slower on v5e)."""
+    interleave: stacked slices + one small einsum, no (block_out, P)
+    scattered gather.  Contracts in exact float32 (ops/fir.py EXACT)."""
     U, D, P = plan.up, plan.down, plan.taps_per_phase
     t_count = plan.block_out // U
     h_classes = np.stack(
@@ -170,11 +169,13 @@ def _resample_real(ext: jnp.ndarray, plan: ResamplerPlan) -> jnp.ndarray:
     # Accumulate the pp shifted slice-reductions instead of stacking them:
     # same rationale as fir._fir_poly (the stack materializes a pp-fold
     # copy; the loop is a fused streaming pass per p).
+    from tpusdr.ops.fir import EXACT as prec
+
     hj = jnp.asarray(h_pad)  # (U, pp, D)
     v = jnp.zeros(frames.shape[:-2] + (t_count,), jnp.float32)
     for p in range(pp):
         w = jax.lax.slice_in_dim(frames, p, p + t_count, axis=-2)  # (..., U, t, D)
-        v = v + jnp.einsum("...utd,ud->...ut", w, hj[:, p])
+        v = v + jnp.einsum("...utd,ud->...ut", w, hj[:, p], precision=prec)
     # interleave classes: m = c + U*t  ->  (..., t, U) -> (..., t*U)
     y = jnp.swapaxes(v, -1, -2).reshape(v.shape[:-2] + (plan.block_out,))
     return y.astype(jnp.float32)
@@ -189,11 +190,8 @@ def resample_apply(state, x, plan: ResamplerPlan):
 
     ``up == 1`` is a pure decimating FIR — upfirdn's y[m] = sum_i h[i] *
     x[m*D - i] is fir_extended's banded-matmul contraction with the same
-    T-1 history — so it delegates to ops/fir (MXU path).  The general
-    resampler's frames carry a D-wide minor axis that TPU tiles to 128
-    lanes; at D=20 that alone capped config 4's audio stage at 1.56 Gsps
-    (benchmarks/profile_config_stages.py, 2026-08-20) while the banded FIR
-    runs the same math at multi-Gsps.
+    T-1 history — so it delegates to ops/fir.  The general resampler's
+    frames carry a narrow D-wide minor axis; the banded FIR avoids it.
     """
     from tpusdr.ops import cplx
 
@@ -203,7 +201,7 @@ def resample_apply(state, x, plan: ResamplerPlan):
         if plan.taps is None:
             # Plans built before the `taps` field existed (or constructed
             # by hand instead of via make_plan) stay on the general path:
-            # correct but without the banded-MXU speedup (ADVICE r3).
+            # correct but without the banded-matmul form.
             from tpusdr.utils.logging import get_logger
 
             get_logger("resample").debug(

@@ -54,9 +54,9 @@ class ChannelShardedBank:
         self.chan_chain = Chain([("channelizer", channelizer)])
         self.demod_chain = demod_chain
         self.mesh = mesh
-        # one or several mesh axes (('host', 'chip') on a 2-D DCN x ICI
+        # one or several mesh axes (('host', 'chip') on a 2-D host x device
         # mesh): collectives flatten the tuple into one ring, keeping the
-        # all_to_all pivot mostly on ICI.
+        # all_to_all pivot mostly inside a host.
         axes = (axis,) if isinstance(axis, str) else tuple(axis)
         self.axis = axes if len(axes) > 1 else axes[0]
         self.shards = int(np.prod([mesh.shape[a] for a in axes]))

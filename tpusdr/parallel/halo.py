@@ -11,7 +11,7 @@ grid stays aligned with the unsharded run.
 Per tick, inside shard_map:
 
   1. each shard sends its tail H samples right via ``lax.ppermute``
-     (one ICI hop; shard 0 instead uses the cross-tick carry tail);
+     (one neighbor hop; shard 0 instead uses the cross-tick carry tail);
   2. the chain runs cold on [halo, shard] — the halo *warms up* every
      finite-memory carry to exactly its streaming value (the overlap-save
      trick: the reference's retained FIR tail, Fir.cpp:274-308, re-created
@@ -79,15 +79,15 @@ class TimeShardedStream:
     ):
         """``stagewise``: exchange a separate halo per STAGE, each at that
         stage's own input rate, instead of one chain-wide halo at the
-        input rate.  The default 'auto' uses stagewise for Chains (the
-        production sharding — SCALING_r05.json) and the chain-wide form
+        input rate.  The default 'auto' uses stagewise for Chains and the
+        chain-wide form
         for Graphs (no linear stage list to plan over).  A stage's lookback costs its own rate, not the
         input rate: the WBFM de-emphasis warmup is ~500 quad-rate samples,
         which the chain-wide halo inflates by the full RF decimation into
         ~50k input samples of redundant front-end compute per shard per
         tick.  At the 100 MHz design point the chain-wide halo is ~206k
         input samples — at 256 shards of a 1 s tick that is 53% redundant
-        compute, vs ~1% stagewise (benchmarks/scaling_model.py).  Costs
+        compute, vs ~1% stagewise (halo lengths, by arithmetic).  Costs
         one extra ppermute per stateful stage (tiny, latency-bound).
         Requires a Chain (stage list); Graphs use the chain-wide halo."""
         self.full_chain = chain
@@ -100,9 +100,9 @@ class TimeShardedStream:
         if self.stagewise and not isinstance(self.chain, Chain):
             raise ValueError("stagewise halos need a Chain (per-stage plan)")
         self.mesh = mesh
-        # one or several mesh axes (e.g. ('host', 'chip') on a 2-D DCN x ICI
-        # mesh); collectives treat the tuple as one flattened ring, so the
-        # halo ppermute crosses DCN only at host boundaries.
+        # one or several mesh axes (e.g. ('host', 'chip') on a 2-D
+        # host x device mesh); collectives treat the tuple as one flattened
+        # ring, so the halo ppermute crosses hosts only at host boundaries.
         axes = (axis,) if isinstance(axis, str) else tuple(axis)
         self.axis = axes if len(axes) > 1 else axes[0]
         self.shards = int(np.prod([mesh.shape[a] for a in axes]))

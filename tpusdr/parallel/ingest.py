@@ -8,11 +8,11 @@ The scheme: the global tick index is the single source of truth.  Host h of
 H hosts, holding local devices for mesh rows [h*D, (h+1)*D), reads byte
 range ``tick_index * tick_bytes + local_shard_offset`` from its copy (or
 its segment) of the capture, and the per-host arrays are assembled into one
-global jax array with ``jax.make_array_from_process_local_data`` — no DCN
+global jax array with ``jax.make_array_from_process_local_data`` — no cross-host
 traffic beyond what XLA needs for the compute itself.
 
-Single-process meshes (this dev box, CPU virtual meshes) take the same code
-path with H=1, so the logic is testable without a pod.
+Single-process meshes (one host, CPU virtual meshes) take the same code
+path with H=1, so the logic is testable without a cluster.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Leveled, pluggable logging.
 
-TPU-native replacement for the reference's GSLog subsystem
-(/root/reference/src/GSLog.cpp:32-167: global pluggable ILogger, six levels,
+Replacement for the reference's GSLog subsystem
+(reference src/GSLog.cpp:32-167: global pluggable ILogger, six levels,
 level gate, fatal aborts). We use stdlib logging with the same level
 vocabulary; ``set_log_level`` is the analog of gsLogSetVerbosity
 (GSLog.cpp:77-82).
